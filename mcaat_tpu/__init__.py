@@ -1,7 +1,7 @@
-"""mcaat_tpu — TPU-native assembly-free CRISPR array detection framework.
+"""mcaat_tpu — assembly-free CRISPR array detection on an accelerator.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-tool MCAAT (Purpurax/mcaat, C++/OpenMP), re-architected TPU-first:
+tool MCAAT (Purpurax/mcaat, C++/OpenMP), re-architected for a JAX accelerator:
 
 * k-mer counting + de Bruijn graph construction as device-side sort +
   segment-reduce over packed integer k-mers (replaces megahit's CX1 sorting
@@ -28,14 +28,16 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: pipeline stages recompile per dataset shape;
-# caching makes repeat runs start hot. Override dir via MCAAT_CACHE_DIR.
-_cache_dir = os.environ.get(
-    "MCAAT_CACHE_DIR", os.path.join(os.path.expanduser("~"), ".cache", "mcaat_tpu_jax")
-)
-if _cache_dir != "disabled":
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# Persistent compilation cache: pipeline stages recompile per dataset
+# shape, so caching makes repeat runs start hot. JAX reads
+# JAX_COMPILATION_CACHE_DIR itself; only without it does the package pick
+# a fixed directory inside the checkout (the path is part of the cache
+# key, so it must not move between runs).
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jax.config.update(
+        "jax_compilation_cache_dir", os.path.join(_checkout, ".jax_cache")
+    )
 
 __version__ = "0.1.0"
 

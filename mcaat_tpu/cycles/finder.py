@@ -5,7 +5,7 @@ Faithful reimplementation of ``CycleFinder::FindCycle`` /
 ``src/cycle_finder.cpp:131-492``): Johnson-style bounded-length cycle
 enumeration with a lock/relax mechanism, run per start node.
 
-Division of labor (TPU-first): the *whole-graph* work — pruning, the
+Division of labor: the *whole-graph* work — pruning, the
 candidate scan and the millions of bounded reachability probes — runs on
 device (see ``prune/`` and ``cycles/start_nodes.py``). The per-start-node
 DFS below only ever touches the tiny neighborhood of an actual CRISPR
@@ -194,9 +194,9 @@ NEIGHBORHOOD_MIN_NODES = 200_000
 
 # Above this node count tip clipping is DEFERRED to the extracted candidate
 # neighborhood ("lazy clip"): the global pointer-doubling chain collapse is
-# ~log2(N) full-array random gathers — 15.3s of a 19.1s cycle stage at 16.7M
-# nodes on v5e — while clipping the ~67k-node neighborhood costs ~0.1s.
-# This is output-preserving:
+# ~log2(N) full-array random gathers, which dominated the cycle stage on
+# the previous accelerator, while the neighborhood is orders of magnitude
+# smaller (unmeasured on this card). This is output-preserving:
 #  * self-reach (<= L steps) is clip-invariant: every node on a closed walk
 #    lies on a cycle, and tip clipping never removes cycle nodes, so a
 #    self-reaching walk exists pre-clip iff it exists post-clip.

@@ -50,7 +50,8 @@ def _self_reach_kernel(
     frontier = jnp.full((B, F), N, dtype=jnp.int32)
     frontier = frontier.at[:, 0].set(jnp.where(live_lane, starts_c, N))
     # flat [B*W] bitset: per-level membership gather + mark scatter run as
-    # 1-D ops with sorted indices (TPU 2-D scatters are ~10x slower)
+    # 1-D ops with sorted indices (chosen over 2-D scatters on the previous
+    # accelerator)
     visited = jnp.zeros((B * W,), dtype=jnp.uint32)
     found = jnp.zeros((B,), dtype=bool)
     overflow = jnp.zeros((B,), dtype=bool)
@@ -220,9 +221,9 @@ def _candidate_mask(out, in_, valid, mult, threshold_multiplicity):
     """Static candidate predicate, one fused pass (src/cycle_finder.cpp:398-411).
 
     Flat strided slices only — ``(out == ids4).reshape(-1, 4)`` was
-    materialized by XLA as ``u32[N,4]`` at the TPU tiled layout (minor
-    dim 4 padded to 128 lanes): 25.8 GB at 50M nodes, the r3 300M-window
-    OOM. Strided [N] slices of the flat [4N] array never pad.
+    materialized by XLA as ``u32[N,4]`` at the previous accelerator's
+    tiled layout, which padded the minor dim many times over. Strided [N]
+    slices of the flat [4N] array never pad.
     """
     from mcaat_tpu.graph.dbg import _degree
 
@@ -264,8 +265,7 @@ def candidate_ids(graph: DBG, threshold_multiplicity: int) -> np.ndarray:
     """Two-stage static candidate scan (src/cycle_finder.cpp:398-411).
 
     The fused full-graph predicate pays a 4N random validity gather for
-    in-degrees (200M elements at 50M nodes — 13.7s of the 302M-window
-    warm run) to evaluate a filter that typically keeps ~1e3 nodes.
+    in-degrees to evaluate a filter that typically keeps ~1e3 nodes.
     Stage 1 compacts the cheap O(N) half (valid & mult>thr) with one
     device sort; stage 2 gathers the in/out slots of the survivors only.
     Falls back to the fused scan when the pre-filter keeps > n/8 nodes

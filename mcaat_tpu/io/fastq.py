@@ -4,7 +4,7 @@ Replaces the reference's kseqpp-based reader (``src/reads.cpp:3-18``) and
 megahit's ``SequenceLibCollection`` binary read library (reference
 ``src/sdbg_build.cpp:59-115``). Reads are parsed on host, 2-bit encoded,
 and packed into a dense padded ``[R, Lmax]`` uint8 matrix ready for device
-k-mer extraction — the TPU-native equivalent of megahit's packed read
+k-mer extraction — the device-side equivalent of megahit's packed read
 format.
 
 Base encoding: A=0, C=1, G=2, T=3. Any non-ACGT character is encoded as T,

@@ -1,26 +1,95 @@
 """ctypes bindings for the native host runtime (native/mcaat_host.cpp).
 
-Build with ``make -C native``; every entry point gracefully degrades to
-the pure-Python implementation when the library is absent, so the
-framework works without a toolchain.
+The library is compiled from source at first use into
+``native/libmcaat_host.so`` (ignored by git), or ahead of time with
+``make -C native``; both use the same flags. The build holds a file lock
+and renames a finished temporary file into place, so concurrent first
+uses (test workers, several processes) compile it once and never load a
+half-written file. Without a C++ compiler every entry point degrades to
+the pure-Python implementation, and the loader says so once on stderr.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import subprocess
+import sys
+import tempfile
 from typing import Optional
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
+_NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
-    "libmcaat_host.so",
 )
+_SRC_PATH = os.path.join(_NATIVE_DIR, "mcaat_host.cpp")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libmcaat_host.so")
+# keep in step with native/Makefile (OpenMP is added per attempt)
+_CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall"]
+_LDFLAGS = ["-shared", "-lz"]
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def _up_to_date(src: str, lib: str) -> bool:
+    return os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src)
+
+
+def _compilers() -> list[str]:
+    """``$CXX`` first, then ``g++`` and ``c++`` from PATH, without repeats."""
+    found = []
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        path = shutil.which(name) if name else None
+        if path and os.path.realpath(path) not in map(os.path.realpath, found):
+            found.append(path)
+    return found
+
+
+def build_library(src: str = _SRC_PATH, lib: str = _LIB_PATH) -> bool:
+    """Compile ``src`` into the shared library ``lib`` unless it is newer
+    than its source. Returns True when this call compiled it. Raises
+    RuntimeError when no compiler is found or every compile fails.
+
+    Every compiler is tried with OpenMP before any is tried without it
+    (the source guards its OpenMP use, so a compiler that lacks it still
+    gives a working, single-threaded library)."""
+    import fcntl
+
+    if _up_to_date(src, lib):
+        return False
+    compilers = _compilers()
+    if not compilers:
+        raise RuntimeError("no C++ compiler found (set CXX or install g++)")
+    out_dir = os.path.dirname(os.path.abspath(lib))
+    with open(os.path.join(out_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _up_to_date(src, lib):  # another process built it meanwhile
+            return False
+        fd, tmp = tempfile.mkstemp(
+            prefix="." + os.path.basename(lib) + ".", dir=out_dir
+        )
+        os.close(fd)
+        errors = []
+        try:
+            for omp in (["-fopenmp"], []):
+                for cxx in compilers:
+                    res = subprocess.run(
+                        [cxx, *_CXXFLAGS, *omp, src, "-o", tmp, *_LDFLAGS, *omp],
+                        capture_output=True,
+                        text=True,
+                    )
+                    if res.returncode == 0:
+                        os.replace(tmp, lib)
+                        return True
+                    errors.append(f"{cxx} {' '.join(omp)}: {res.stderr[-1000:]}")
+            raise RuntimeError(f"compiling {src} failed:\n" + "\n".join(errors))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -28,11 +97,15 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        return None
     try:
+        build_library()
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    except (RuntimeError, OSError) as e:
+        print(
+            f"mcaat_tpu: native runtime unavailable, using the Python "
+            f"fallback ({e})",
+            file=sys.stderr,
+        )
         return None
     c = ctypes
     lib.mcaat_parse_fastx.restype = c.c_int
@@ -76,44 +149,43 @@ def _load() -> Optional[ctypes.CDLL]:
         c.POINTER(c.c_char_p),
         c.POINTER(c.c_int64),
     ]
-    if hasattr(lib, "mcaat_umap_order"):  # older .so builds lack it
-        lib.mcaat_umap_order.restype = c.c_int64
-        lib.mcaat_umap_order.argtypes = [
-            c.c_char_p,
-            c.POINTER(c.c_int64),
-            c.c_int64,
-            c.POINTER(c.c_int64),
-        ]
-    if hasattr(lib, "mcaat_pack_codes"):  # older .so builds lack it
-        lib.mcaat_pack_codes.restype = None
-        lib.mcaat_pack_codes.argtypes = [
-            c.POINTER(c.c_uint8),
-            c.c_int64,
-            c.c_int64,
-            c.c_int64,
-            c.POINTER(c.c_uint8),
-        ]
-    if hasattr(lib, "mcaat_scc"):  # older .so builds lack it
-        lib.mcaat_scc.restype = c.c_int64
-        lib.mcaat_scc.argtypes = [
-            c.POINTER(c.c_int64),
-            c.POINTER(c.c_int64),
-            c.c_int64,
-            c.POINTER(c.c_uint8),
-            c.POINTER(c.c_int64),
-            c.POINTER(c.c_int64),
-        ]
+    lib.mcaat_umap_order.restype = c.c_int64
+    lib.mcaat_umap_order.argtypes = [
+        c.c_char_p,
+        c.POINTER(c.c_int64),
+        c.c_int64,
+        c.POINTER(c.c_int64),
+    ]
+    lib.mcaat_pack_codes.restype = None
+    lib.mcaat_pack_codes.argtypes = [
+        c.POINTER(c.c_uint8),
+        c.c_int64,
+        c.c_int64,
+        c.c_int64,
+        c.POINTER(c.c_uint8),
+    ]
+    lib.mcaat_scc.restype = c.c_int64
+    lib.mcaat_scc.argtypes = [
+        c.POINTER(c.c_int64),
+        c.POINTER(c.c_int64),
+        c.c_int64,
+        c.POINTER(c.c_uint8),
+        c.POINTER(c.c_int64),
+        c.POINTER(c.c_int64),
+    ]
+    lib.mcaat_set_threads.restype = None
+    lib.mcaat_set_threads.argtypes = [c.c_int]
     _lib = lib
     return _lib
 
 
 def pack_codes(codes) -> "np.ndarray | None":
     """[R, L] 2-bit code matrix -> [R, ceil(L/4)] packed bytes, or None
-    when the native lib is unbuilt/old (caller falls back to numpy)."""
+    when the native lib is unavailable (caller falls back to numpy)."""
     import numpy as np
 
     lib = _load()
-    if lib is None or not hasattr(lib, "mcaat_pack_codes"):
+    if lib is None:
         return None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     R, L = codes.shape
@@ -133,11 +205,11 @@ def scc_components(indptr, indices, valid) -> "list[list[int]] | None":
     """Tarjan SCC over a CSR adjacency — result- AND order-identical to
     ordering.find_strongly_connected_components (the caller's fallback).
     Returns the list of >1-node components in emission order, or None
-    when the native lib is unbuilt/old."""
+    when the native lib is unavailable."""
     import numpy as np
 
     lib = _load()
-    if lib is None or not hasattr(lib, "mcaat_scc"):
+    if lib is None:
         return None
     indptr = np.ascontiguousarray(indptr, dtype=np.int64)
     indices = np.ascontiguousarray(indices, dtype=np.int64)
@@ -170,9 +242,9 @@ def native_available() -> bool:
 def set_threads(n: int) -> None:
     """Bound the native library's OpenMP team (the packer's parallel-for)
     to ``n`` threads — ≙ the reference's omp_set_num_threads
-    (src/main.cpp:292-294). No-op when the library is unbuilt/old."""
+    (src/main.cpp:292-294). No-op when the library is unavailable."""
     lib = _load()
-    if lib is None or not hasattr(lib, "mcaat_set_threads") or n <= 0:
+    if lib is None or n <= 0:
         return
     lib.mcaat_set_threads(ctypes.c_int(int(n)))
 
@@ -186,7 +258,7 @@ def umap_order(keys: list[str]):
     order; see report/analyzer._get_common_kmers for the divergence
     note)."""
     lib = _load()
-    if lib is None or not hasattr(lib, "mcaat_umap_order") or not keys:
+    if lib is None or not keys:
         return None
     c = ctypes
     buf = "".join(keys).encode("ascii")

@@ -2,15 +2,17 @@
 
 The reference is single-process shared-memory OpenMP with no distributed
 backend at all (SURVEY §2.3); its scale ceiling is one node's RAM. The
-TPU-native scale-out path runs one process per host of a pod slice:
+scale-out path runs one process per host:
 
 * ``initialize_distributed`` wires ``jax.distributed`` from env vars
-  (``MCAAT_COORDINATOR``/``MCAAT_NUM_PROCESSES``/``MCAAT_PROCESS_ID``) —
-  on Cloud TPU the arguments are auto-detected and the vars are optional.
+  (``MCAAT_COORDINATOR``/``MCAAT_NUM_PROCESSES``/``MCAAT_PROCESS_ID``).
+  All three are required: nothing detects a cluster on its own (the
+  coordinator is ``host:port``, e.g. ``localhost:<free port>`` for
+  several processes on one machine).
 * ``make_host_mesh`` builds the ("dp", "kp") mesh over ALL processes'
   devices with each host's local devices forming kp columns, so the
-  heavy ``all_to_all`` k-mer/frontier routing rides ICI within a host
-  and only the dp-axis reductions cross DCN.
+  heavy ``all_to_all`` k-mer/frontier routing stays within a host's
+  interconnect and only the dp-axis reductions cross hosts.
 * ``read_host_shard`` gives each host its share of the input FASTQ
   records: contiguous byte-ranges for plain files (Hadoop-style record
   boundary scan — no host reads more than its slice), modulo-record
@@ -196,7 +198,8 @@ def make_global_mesh():
     dp=1 and the k-mer space radix-partitions over every chip of every
     host, so per-process graph memory is O(N / total_chips). jax.devices()
     orders by process, so each host's devices are contiguous along kp and
-    the intra-host portion of the kp all_to_all rides ICI."""
+    the intra-host portion of the kp all_to_all stays on the host's
+    interconnect."""
     import jax
 
     from mcaat_tpu.parallel.sharded import make_pipeline_mesh
@@ -268,7 +271,7 @@ def run_pipeline_multihost(settings, verbose: bool = True,
             mesh, codes, lengths, k=23,
             add_rc=settings.add_reverse_complement,
         )
-        _ = int(np.asarray(sg.n_live).sum())  # materialize for timing
+        jax.block_until_ready((sg.kmers, sg.mult, sg.out, sg.in_))
     if dropped != 0:
         raise RuntimeError("multi-host sharded build overflowed its capacities")
     # the concatenated code matrix was lifted to the mesh part by part;

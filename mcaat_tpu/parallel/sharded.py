@@ -2,7 +2,7 @@
 
 The reference is single-node OpenMP with no distributed backend at all
 (SURVEY §2.3; its only parallel runtime is ``find_package(OpenMP)``).
-This module is the TPU-native scale-out design:
+This module is the scale-out design:
 
 * mesh axes ``("dp", "kp")`` — ``dp`` shards reads (FASTQ shards stream
   in data-parallel), ``kp`` radix-partitions the k-mer space by the top
@@ -10,8 +10,10 @@ This module is the TPU-native scale-out design:
   adjacency live distributed over chips (≈1 GB/chip at 1B nodes over 16
   chips, SURVEY §7.3 risk 4).
 * k-mer counting: local extraction → bucket by owner (one sort, since
-  the owner id *is* the top bits) → ``all_to_all`` over ``kp`` (rides
-  ICI) → ``all_gather`` over ``dp`` → local sort + segment-reduce.
+  the owner id *is* the top bits) → ``all_to_all`` over ``kp`` (NCCL
+  over the cards' interconnect) → ``all_gather`` over ``dp`` → local
+  sort + segment-reduce. Every card reaches every other at the same
+  rate, so the mesh follows the algorithm alone.
 * query routing (the frontier-exchange primitive for distributed read
   mapping / BFS): queries bucketed by owner, ``all_to_all`` to owner
   shards, local binary search, ``all_to_all`` back, inverse-permute.
@@ -138,7 +140,7 @@ def sharded_lookup(
 ):
     """Distributed k-mer → owner-local index lookup (frontier exchange).
 
-    Each query is routed to its owner shard over ICI, binary-searched in
+    Each query is routed to its owner shard, binary-searched in
     the owner's local table slice, and the (owner-local) hit index is
     routed back; -1 for misses. This is the communication shape of the
     distributed read-mapper and BFS frontier exchange.

@@ -21,10 +21,10 @@ Replaces the reference's scalar pruning in
     4. one vectorized pass assigns validity from terminal classes.
 
   A naive per-level "remove current tips" fixpoint needs one full-array
-  pass per chain NODE — a single linear 200k-node background chain put
-  200k iterations into one device program and crashed the TPU worker
-  (execution watchdog). Doubling needs ~log2(N) ≈ 25 passes regardless
-  of chain length. (The reference walks parent chains from the initial
+  pass per chain NODE — a long linear background chain puts that many
+  iterations into one device program (which the previous accelerator's
+  execution watchdog killed). Doubling needs ~log2(N) ≈ 25 passes
+  regardless of chain length. (The reference walks parent chains from the initial
   tips; this fixpoint additionally clips dead-ends exposed by the
   multiplicity filter. Nodes differing between the two can never lie on
   a cycle — they have no valid outgoing path — so cycle enumeration and
@@ -56,7 +56,7 @@ def _clip_tips_fixpoint(out: jax.Array, valid: jax.Array) -> jax.Array:
     Kept as the semantic model for parity tests ONLY: a long linear chain
     (common — any non-repetitive genome region is one) makes this loop
     for hundreds of thousands of full-array passes inside one device
-    program, which crashes/watchdogs the TPU worker. Production path is
+    program. Production path is
     :func:`_chain_collapse` + :func:`clip_tips`.
     """
 
@@ -95,8 +95,7 @@ def _chain_collapse(out: jax.Array, valid: jax.Array, n_passes: int):
         ~valid | (deg == 0), _DEAD, jnp.where(deg == 1, _UNARY, _BRANCH)
     ).astype(jnp.int32)
     adj_ok = (out >= 0) & valid[jnp.maximum(out, 0)]
-    # strided flat slices, not reshape(-1, 4): XLA materializes the [N,4]
-    # reshape at the TPU tiled layout (4 -> 128 lanes, 32x HBM)
+    # strided flat slices, not reshape(-1, 4): no [N,4] intermediate
     succ = jnp.where(adj_ok[0::4], out[0::4], -1)
     for b in range(1, 4):
         succ = jnp.maximum(succ, jnp.where(adj_ok[b::4], out[b::4], -1))

@@ -238,8 +238,8 @@ def _phase1_kept(graph: DBG, batch: ReadBatch, cyc_km_j, endpoints) -> np.ndarra
 
 def _isin_sorted(x, table_sorted):
     """Membership of non-negative ids in a sorted id table (sort-merge
-    searchsorted: the default binary-search lowering is ~11x slower on
-    TPU at bulk sizes — CLAUDE.md perf facts)."""
+    searchsorted at bulk sizes, chosen over the binary-search lowering on
+    the previous accelerator)."""
     x64 = x.astype(jnp.int64)
     method = "sort" if x.size >= 4096 else "scan"
     pos = jnp.searchsorted(table_sorted, x64, method=method)
@@ -260,8 +260,7 @@ def _endpoint_keep_mask(cyc_kmers, codes, lengths, k: int):
     endpoint k-mers against the CYCLE NODES' OWN k-mer table (node id =
     k-mer rank, so sorted cycle ids gather to a sorted k-mer table) —
     equivalent to lookup-then-id-membership, but the sort-join is
-    2R + |cycles| rows instead of 2R + N (the full-table join sorted
-    ~147M rows = ~2.4s of the 796M run's keep tick for an ~800-node set).
+    2R + |cycles| rows instead of 2R + N.
     """
     from mcaat_tpu.kmer.count import extract_first_kmer, extract_last_kmer
 

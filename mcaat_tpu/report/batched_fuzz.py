@@ -3,9 +3,9 @@
 The north-star design calls for the RapidFuzz-style edit-distance scoring
 to run as batched DP kernels on device (BASELINE.json). Strings here are
 spacers/repeats ≤ 64 bp, so Hyyrö's bit-parallel LCS fits one 64-bit
-row — emulated as a pair of uint32 words (TPU lanes are 32-bit). One VPU
-lane scores one pair per scan step; a [B]-batch of pairs runs in a single
-``lax.scan`` over the query length.
+row — kept as a pair of uint32 words, so the hot loop stays 32-bit. Each
+batch lane scores one pair per scan step; a [B]-batch of pairs runs in a
+single ``lax.scan`` over the query length.
 
 ``ratio``   = 100 * 2*LCS(a,b) / (|a|+|b|)      (indel distance)
 ``partial_ratio`` = max ratio of the shorter string against every
@@ -17,8 +17,6 @@ Exact parity with the host implementation (``report.fuzz``) is tested in
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,9 +48,8 @@ def encode_batch(strings: list[str], maxlen: int = MAXLEN):
 def _match_masks(codes: jax.Array, lengths: jax.Array):
     """Per-lane match masks: [B, 4, 2] uint32 (lo word, hi word).
 
-    Pure integer where+sum per base (bits are disjoint, so sum == OR);
-    the earlier f32 one-hot einsum materialized a [B, L, 4] intermediate
-    and dominated the Pallas DP kernel's wall time.
+    Pure integer where+sum per base (bits are disjoint, so sum == OR),
+    with no [B, L, 4] one-hot intermediate.
     """
     B, L = codes.shape
     pos = jnp.arange(L)
@@ -133,30 +130,22 @@ def _popcount(x: jax.Array) -> jax.Array:
 
 
 @jax.jit
-def _ratio_batch_scan(a_codes, a_lengths, b_codes, b_lengths) -> jax.Array:
-    lcs = lcs_batch(a_codes, a_lengths, b_codes, b_lengths)
-    total = (a_lengths + b_lengths).astype(jnp.float32)
-    return jnp.where(
-        total > 0, 200.0 * lcs.astype(jnp.float32) / total, 100.0
-    )
-
-
 def ratio_batch(a_codes, a_lengths, b_codes, b_lengths) -> jax.Array:
     """fuzz::ratio per lane, float32 [B] in [0, 100].
 
-    Dispatch: on TPU the Pallas kernel (``report.pallas_dp``) — measured
-    11x over the lax.scan version on v5e (6.1M vs 0.55M pairs/s at 262k
-    pairs; the scan's per-step ``masks[lane, c]`` random gather is the
-    killer) — else the scan (CPU backend; Pallas interpret mode is far
-    slower than the scan there).
+    The quotient is taken in float64 and rounded once to float32, which
+    is bit-identical to rounding the host's double-precision
+    ``report.fuzz.ratio`` on every backend. (XLA's GPU float32 division
+    is not correctly rounded: a float32 quotient differed from the host
+    in the last bit on about a third of random pairs on an H100.)
     """
-    import jax as _jax
-
-    if _jax.default_backend() == "tpu":
-        from mcaat_tpu.report.pallas_dp import ratio_batch_pallas
-
-        return ratio_batch_pallas(a_codes, a_lengths, b_codes, b_lengths)
-    return _ratio_batch_scan(a_codes, a_lengths, b_codes, b_lengths)
+    lcs = lcs_batch(a_codes, a_lengths, b_codes, b_lengths)
+    total = a_lengths + b_lengths
+    score = (
+        200.0 * lcs.astype(jnp.float64)
+        / jnp.maximum(total, 1).astype(jnp.float64)
+    )
+    return jnp.where(total > 0, score, 100.0).astype(jnp.float32)
 
 
 def pairwise_ratio_matrix(strings: list[str]) -> np.ndarray:
@@ -180,7 +169,8 @@ def partial_ratio_pairs(
     """fuzz::partial_ratio per (shorts[i], longs[i]) pair, one device call.
 
     Every alignment window (including clipped edges) becomes a lane; the
-    per-pair max is reduced on host.
+    per-pair max is reduced on host. Equal-length pairs score the plain
+    ratio of the two strings, as ``report.fuzz.partial_ratio`` does.
     """
     assert len(shorts) == len(longs)
     if not shorts:
@@ -189,7 +179,7 @@ def partial_ratio_pairs(
     for idx, (a, b) in enumerate(zip(shorts, longs)):
         s, l = (a, b) if len(a) <= len(b) else (b, a)
         ls, ll = len(s), len(l)
-        if ls == 0:
+        if ls == 0 or ls == ll:
             a_list.append(s)
             b_list.append(l)
             owner.append(idx)

@@ -51,7 +51,7 @@ class Settings:
     cycle_finder_settings: CycleFinderSettings = field(default_factory=CycleFinderSettings)
     dna_sequence_settings: DNASequenceSettings = field(default_factory=DNASequenceSettings)
 
-    # TPU-framework-specific knobs (not in the reference):
+    # knobs of this framework (not in the reference):
     add_reverse_complement: bool = True  # megahit's graph contains both strands
     deterministic: bool = True  # stable start-node order / canonical output
     debug_pipeline: bool = False  # run the reference's DEBUG-main extension

@@ -1,3 +1,1 @@
-from .env import honor_cpu_env
-
-__all__ = ["honor_cpu_env"]
+"""Observability and wire-volume helpers."""

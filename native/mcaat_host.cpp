@@ -1,6 +1,6 @@
 // mcaat_host — native host-side runtime for mcaat_tpu.
 //
-// TPU-native framework split: device compute (k-mer counting, graph build,
+// Framework split: device compute (k-mer counting, graph build,
 // batched traversal) runs under JAX/XLA; this library provides the native
 // host runtime around it, replacing the reference's C++ machinery where it
 // is host-bound:
@@ -160,8 +160,7 @@ void mcaat_free(void* p) { free(p); }
 
 // Pack a [rows, L] 2-bit code matrix to [rows, lp] bytes, 4 bases/byte
 // LSB-first (bit layout of kmer/count.py::pack_codes_host). The numpy
-// formulation makes 6+ full-size passes (~9.3s for a 3.9M x 192 matrix
-// on this host); this is one streaming pass.
+// formulation makes 6+ full-size passes; this is one streaming pass.
 void mcaat_pack_codes(const uint8_t* codes, int64_t rows, int64_t L,
                       int64_t lp, uint8_t* out) {
 #ifdef _OPENMP
@@ -196,8 +195,7 @@ void mcaat_pack_codes(const uint8_t* codes, int64_t rows, int64_t L,
 // stack-pop order concatenated per component (the Python version's exact
 // intra-component order); sizes_out[c] the emitted component's size. Both
 // caller-allocated with capacity n. Returns the emitted component count.
-// Pure Python runs ~100k nodes/s (4.1s on the 394k-node condensed region
-// of the 796M-window run); this pass is ~50x.
+// The pure-Python fallback is much slower on large condensed regions.
 int64_t mcaat_scc(const int64_t* indptr, const int64_t* indices,
                   int64_t n, const uint8_t* valid,
                   int64_t* order_out, int64_t* sizes_out) {

@@ -4,7 +4,7 @@
 // reference's L4/L5 sources (cycle_finder.cpp, spacer_ordering.cpp,
 // tmp_utils.cpp, reads.cpp, post_processing.h, ...) are compiled against THIS
 // header for the true-parity harness: both the reference algorithms and the
-// TPU pipeline then see the exact same graph, and their reports can be
+// JAX pipeline then see the exact same graph, and their reports can be
 // compared end to end (tests/test_reference_parity.py).
 //
 // API surface = exactly the methods mcaat consumes (SURVEY.md §2.2-N2).

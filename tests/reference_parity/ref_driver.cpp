@@ -8,7 +8,7 @@
 // run_and_debug_spacer_ordering -> CRISPRAnalyzer -> CRISPR_Arrays.txt.
 // The SDBGBuild stage is the one part that cannot run (the megahit
 // submodule is empty in this snapshot), which is exactly why the graph
-// comes from the TPU build.
+// comes from the JAX build.
 //
 // Usage: ref_driver <graph.dump> <out_report.txt> <fastq1> [fastq2]
 //                   [--filters] [--benchmark <truth_file>]

@@ -357,3 +357,15 @@ def test_run_pipeline_applies_settings_threads(tmp_path, monkeypatch):
         assert pl._ordering_worker_count() == 1
     finally:
         pl.configure_threads(0)
+
+
+def test_ordering_pool_worker_failure_raises(monkeypatch):
+    """A failing ordering worker raises in the parent: there is no silent
+    serial rerun (the workers are spawned, so this goes through the pool)."""
+    from mcaat_tpu import pipeline as pl
+
+    monkeypatch.setenv("MCAAT_ORDERING_PROCS", "2")
+    monkeypatch.setattr(pl, "_ORDERING_POOL_MIN_SUBPROBLEMS", 1)
+    broken = [(None, None, None), (None, None, None)]
+    with pytest.raises(TypeError):
+        pl._solve_subproblems(None, broken)

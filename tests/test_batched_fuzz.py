@@ -64,3 +64,53 @@ def test_partial_ratio_pairs_matches_host():
     assert got[0] == 100.0
     for i in range(10):
         assert abs(got[i] - partial_ratio(shorts[i], longs[i])) < 1e-4
+
+
+def _lcs_cases(case):
+    """(a, b) string lists for the parametrized lcs/ratio cases."""
+    if case == "identical_and_empty":
+        return (
+            ["ACGTACGTACGTACGTACGTACGT", "", "AAAA", ""],
+            ["ACGTACGTACGTACGTACGTACGT", "ACGT", "TTTT", ""],
+        )
+    rng = np.random.default_rng(case)
+    return (
+        [rand_dna(rng, int(rng.integers(5, 65))) for _ in range(case)],
+        [rand_dna(rng, int(rng.integers(5, 65))) for _ in range(case)],
+    )
+
+
+@pytest.mark.parametrize("case", ["identical_and_empty", 1, 127, 1025])
+def test_lcs_and_ratio_batch_cases(case):
+    """Identical, empty and odd batch sizes score exactly like the host."""
+    a_list, b_list = _lcs_cases(case)
+    a_c, a_l = encode_batch(a_list)
+    b_c, b_l = encode_batch(b_list)
+    lcs = np.asarray(lcs_batch(a_c, a_l, b_c, b_l))
+    r = np.asarray(ratio_batch(a_c, a_l, b_c, b_l))
+    assert lcs.shape == r.shape == (len(a_list),)
+    for i, (a, b) in enumerate(zip(a_list, b_list)):
+        assert lcs[i] == lcs_length(a, b), (a, b)
+        assert r[i] == np.float32(ratio(a, b)), (a, b)
+
+
+def test_ratio_batch_is_one_plain_program():
+    """ratio_batch is a single jitted XLA program on every backend: no
+    platform branch and no custom kernel call in its lowering."""
+    import importlib.util
+
+    a_c, a_l = encode_batch(["ACGT", "GATTACA"])
+    text = ratio_batch.lower(a_c, a_l, a_c, a_l).as_text()
+    assert "custom_call" not in text
+    assert importlib.util.find_spec("mcaat_tpu.report.pallas_dp") is None
+
+
+def test_partial_ratio_pairs_equal_lengths():
+    """Equal-length pairs score the plain ratio (no clipped windows),
+    exactly like report.fuzz.partial_ratio."""
+    rng = np.random.default_rng(12)
+    shorts = ["AC", "ACGTT"] + [rand_dna(rng, 30) for _ in range(8)]
+    longs = ["CA", "TTGCA"] + [rand_dna(rng, 30) for _ in range(8)]
+    got = partial_ratio_pairs(shorts, longs)
+    for i, (a, b) in enumerate(zip(shorts, longs)):
+        assert got[i] == np.float32(partial_ratio(a, b)), (a, b)

@@ -18,23 +18,18 @@ from mcaat_tpu.settings import Settings
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
-def _native_umap_available() -> bool:
-    try:
-        from mcaat_tpu.native import umap_order
+@pytest.fixture(autouse=True)
+def _native_umap():
+    """The golden reports pin the native (libstdc++ unordered_map)
+    repeat-candidate order; the pure-Python fallback is deterministic but
+    trims nested candidates in first-seen order (see
+    report/analyzer.py::_get_common_kmers)."""
+    from mcaat_tpu.native import umap_order
 
-        return umap_order(["A", "B"]) is not None
-    except ImportError:
-        return False
+    if umap_order(["A", "B"]) is None:
+        pytest.skip("native runtime unavailable (no C++ compiler)")
 
 
-@pytest.mark.slow
-@pytest.mark.skipif(
-    not _native_umap_available(),
-    reason="the golden fixture pins the native (libstdc++ unordered_map) "
-    "repeat-candidate order; the pure-Python fallback is deterministic "
-    "but trims nested candidates in first-seen order (see "
-    "report/analyzer.py::_get_common_kmers) — build native/ to run this",
-)
 def test_golden_report_byte_identical(tmp_path):
     s = Settings(
         input_files=os.path.join(DATA, "golden_reads.fq"),
@@ -45,7 +40,6 @@ def test_golden_report_byte_identical(tmp_path):
     assert result.report_text == expected
 
 
-@pytest.mark.slow
 def test_golden_truth_recovered(tmp_path):
     truth = json.load(open(os.path.join(DATA, "golden_truth.json")))
     s = Settings(
@@ -77,7 +71,6 @@ def _report_fixture(name: str) -> str:
     return open(os.path.join(DATA, f"{name}_CRISPR_Arrays.txt")).read()
 
 
-@pytest.mark.slow
 def test_golden_rc_only_array(tmp_path):
     """Array present only on the reverse-complement strand: megahit-style
     both-strand counting must still recover it (src/main_run_and_debug.cpp:54-56)."""
@@ -95,7 +88,6 @@ def test_golden_rc_only_array(tmp_path):
     assert found == len(truth[0]["spacers"])
 
 
-@pytest.mark.slow
 def test_golden_mutated_repeat(tmp_path):
     """One repeat occurrence carries a point mutation; the extension scan
     tolerates point mutations (tmp_utils.cpp:239-263) and the array is
@@ -115,7 +107,6 @@ def test_golden_mutated_repeat(tmp_path):
     assert "Number of Systems: 1" in result.report_text
 
 
-@pytest.mark.slow
 def test_golden_paired_end(tmp_path):
     """Paired-end input: mate-2 file is stored reverse-complemented and
     flipped back by the mapper (reads.cpp:116-127)."""

@@ -1,4 +1,4 @@
-"""Native C++ runtime parity tests (skipped when the lib isn't built)."""
+"""Native C++ runtime parity with the Python implementations."""
 
 import numpy as np
 import pytest
@@ -10,9 +10,11 @@ from mcaat_tpu.native import (
     parse_fastx_batch,
 )
 
-pytestmark = pytest.mark.skipif(
-    not native_available(), reason="native library not built (make -C native)"
-)
+
+@pytest.fixture(autouse=True)
+def _needs_native():
+    if not native_available():
+        pytest.skip("native library unavailable (no C++ compiler)")
 
 
 def test_parse_fastq_matches_python(tmp_path):

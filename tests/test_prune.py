@@ -85,7 +85,7 @@ def test_clip_tips_long_chain():
     """A long linear chain into a cycle: only the cycle + feeders survive.
 
     (This shape — one background-genome chain — made the old per-level
-    while_loop run one iteration per chain node and crash the TPU worker.)
+    while_loop run one iteration per chain node inside one device program.)
     """
     n = 3000
     edges = {i: [i + 1] for i in range(n - 1)}

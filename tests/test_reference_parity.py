@@ -110,10 +110,10 @@ def run_both(tmp_path, meta, name: str):
     write_fastq(str(fq), meta["reads"])
     settings = Settings(
         input_files=str(fq),
-        output_file=str(tmp_path / f"{name}_tpu.txt"),
+        output_file=str(tmp_path / f"{name}_ours.txt"),
     )
 
-    # TPU pipeline (fresh, same input)
+    # this pipeline (fresh, same input)
     result = run_pipeline(settings, verbose=False)
 
     # reference pipeline over the SAME graph
@@ -153,9 +153,9 @@ def test_report_parity_single_array(tmp_path, ref_driver):
     result, dump, ref_out, fq = run_both(tmp_path, meta, "one")
     ref_text, ref_stdout = _run_ref(ref_driver, dump, ref_out, fq)
     ref_systems, ref_footer = parse_report(ref_text)
-    tpu_systems, tpu_footer = parse_report(result.report_text)
-    assert tpu_systems == ref_systems
-    assert tpu_footer == ref_footer
+    our_systems, our_footer = parse_report(result.report_text)
+    assert our_systems == ref_systems
+    assert our_footer == ref_footer
     assert ref_footer.get("Number of Systems", 0) >= 1
     assert_counters_match(ref_stdout, result)
 
@@ -166,17 +166,17 @@ def test_report_parity_multi_array(tmp_path, ref_driver):
     result, dump, ref_out, fq = run_both(tmp_path, meta, "multi")
     ref_text, ref_stdout = _run_ref(ref_driver, dump, ref_out, fq)
     ref_systems, ref_footer = parse_report(ref_text)
-    tpu_systems, tpu_footer = parse_report(result.report_text)
-    assert tpu_systems == ref_systems
-    assert tpu_footer == ref_footer
+    our_systems, our_footer = parse_report(result.report_text)
+    assert our_systems == ref_systems
+    assert our_footer == ref_footer
     assert_counters_match(ref_stdout, result)
 
 
 def run_both_files(tmp_path, name: str, fq_paths: list):
-    """TPU pipeline + graph dump for a prepared input file list."""
+    """This pipeline + graph dump for a prepared input file list."""
     settings = Settings(
         input_files=" ".join(str(p) for p in fq_paths),
-        output_file=str(tmp_path / f"{name}_tpu.txt"),
+        output_file=str(tmp_path / f"{name}_ours.txt"),
     )
     result = run_pipeline(settings, verbose=False)
     graph = build_graph_from_settings(settings)
@@ -289,7 +289,7 @@ def test_benchmark_mode_parity(tmp_path, ref_driver):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         benchmark_results(settings, result.found_systems)
-    tpu_stdout = buf.getvalue()
+    our_stdout = buf.getvalue()
 
     pat = re.compile(
         r"≥([\d.]+)% sequence similarity, with (\d+) spacers, (\d+) duplicate "
@@ -298,10 +298,10 @@ def test_benchmark_mode_parity(tmp_path, ref_driver):
         r"([ACGT]+)"
     )
     ref_lines = sorted(m.groups() for m in pat.finditer(ref_stdout))
-    tpu_lines = sorted(m.groups() for m in pat.finditer(tpu_stdout))
-    assert ref_lines and ref_lines == tpu_lines
+    our_lines = sorted(m.groups() for m in pat.finditer(our_stdout))
+    assert ref_lines and ref_lines == our_lines
     avg = re.compile(r"average sequence similarity is ([\d.]+)% with (\d+)/(\d+)")
-    assert avg.search(ref_stdout).groups() == avg.search(tpu_stdout).groups()
+    assert avg.search(ref_stdout).groups() == avg.search(our_stdout).groups()
 
 
 @pytest.mark.slow
@@ -328,12 +328,12 @@ def test_filters_debug_path_parity(tmp_path, ref_driver):
     graph, cycles_map = find_cycles(graph, verbose=False, full_prune=True)
     filters = Filters(graph.to_host(), cycles_map)
     systems, n_spacers = filters.list_arrays()
-    analyzer = CRISPRAnalyzer(systems, str(tmp_path / "flt_tpu.txt"))
-    tpu_text = analyzer.run_analysis()
+    analyzer = CRISPRAnalyzer(systems, str(tmp_path / "flt_ours.txt"))
+    our_text = analyzer.run_analysis()
 
     m = re.search(r"Number of spacers: (\d+) before cleaning", ref_stdout)
     assert m and int(m.group(1)) == n_spacers
-    assert parse_report(ref_text) == parse_report(tpu_text)
+    assert parse_report(ref_text) == parse_report(our_text)
 
 
 @pytest.mark.slow
@@ -359,7 +359,7 @@ def test_tangle_abort_divergence(tmp_path, ref_driver):
     fq = tmp_path / "tangle.fq"
     write_fastq(str(fq), reads)
     settings = Settings(
-        input_files=str(fq), output_file=str(tmp_path / "tangle_tpu.txt")
+        input_files=str(fq), output_file=str(tmp_path / "tangle_ours.txt")
     )
     result = run_pipeline(settings, verbose=False)
 
@@ -368,13 +368,13 @@ def test_tangle_abort_divergence(tmp_path, ref_driver):
     assert any(len(v) == 0 for v in result.cycles_map.values()), (
         "expected an aborted (>500-cycle) start node"
     )
-    tpu_systems, _ = parse_report(result.report_text)
+    our_systems, _ = parse_report(result.report_text)
     planted_repeat = meta["arrays"][0]["repeat"]
-    assert any(planted_repeat.startswith(rep) for rep, _sp in tpu_systems), (
+    assert any(planted_repeat.startswith(rep) for rep, _sp in our_systems), (
         "clean planted array lost next to the tangle"
     )
-    for rep, _sp in tpu_systems:
-        assert rep not in tangle, "tangle junk leaked into the TPU report"
+    for rep, _sp in our_systems:
+        assert rep not in tangle, "tangle junk leaked into the report"
 
     graph = build_graph_from_settings(settings)
     from mcaat_tpu.io.export import write_graph_dump
@@ -387,8 +387,8 @@ def test_tangle_abort_divergence(tmp_path, ref_driver):
 
     # the clean array matches exactly; the reference may carry junk extras
     clean_ref = {(r, s) for r, s in ref_systems if r not in tangle}
-    assert clean_ref == tpu_systems
-    extras = ref_systems - tpu_systems
+    assert clean_ref == our_systems
+    extras = ref_systems - our_systems
     for rep, _sp in extras:
         assert rep in tangle or rep in tangle_template, (
             f"reference extra system not tangle-derived: {rep[:40]}"
