@@ -32,7 +32,10 @@ phase-4 sample built and run sharded over the four cards, then on card 0
 alone with ``--mesh off``; the reports must be byte-identical and the
 node tables must hash the same.
 
-Usage:  python chip_smoke.py [--four-cards] [--keep-logs DIR]
+When a phase fails, the tail of the last CLI run's console output goes
+to stderr.
+
+Usage:  python chip_smoke.py [--four-cards]
 """
 
 from __future__ import annotations
@@ -114,19 +117,20 @@ def device_gate(expect_count: int | None):
     return d, cards[0]
 
 
-def run_cli(args: list[str], log_path: str) -> str:
-    """``mcaat_tpu.cli.main`` in-process; its console output goes to
-    ``log_path`` and is returned."""
+# console output of the last CLI run, shown when a phase fails
+_cli_log = io.StringIO()
+
+
+def run_cli(args: list[str]) -> str:
+    """``mcaat_tpu.cli.main`` in-process; returns its console output."""
+    global _cli_log
     from mcaat_tpu.cli import main
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    _cli_log = io.StringIO()
+    with contextlib.redirect_stdout(_cli_log):
         rc = main(args)
-    text = buf.getvalue()
-    with open(log_path, "w") as fh:
-        fh.write(text)
     check(rc == 0, f"cli {' '.join(args)} returned {rc}")
-    return text
+    return _cli_log.getvalue()
 
 
 def phase_native() -> None:
@@ -138,8 +142,10 @@ def phase_native() -> None:
     say(
         "native",
         f"{'compiled' if built else 'up to date'}: {native._LIB_PATH} "
-        f"({time.perf_counter() - t0:.2f}s)",
+        f"({time.perf_counter() - t0:.2f}s); {native.build_info()}",
     )
+    if built:
+        say("native", f"command: {native.last_build_command}")
 
 
 def phase_goldens(tmp: str) -> None:
@@ -147,10 +153,7 @@ def phase_goldens(tmp: str) -> None:
         out = os.path.join(tmp, name)
         paths = [os.path.join(DATA, f) for f in files]
         t0 = time.perf_counter()
-        run_cli(
-            ["--input-files", *paths, "--output-folder", out],
-            os.path.join(tmp, f"{name}.log"),
-        )
+        run_cli(["--input-files", *paths, "--output-folder", out])
         with open(os.path.join(out, "CRISPR_Arrays.txt")) as fh:
             got = fh.read()
         with open(os.path.join(DATA, f"{name}_CRISPR_Arrays.txt")) as fh:
@@ -272,10 +275,7 @@ def phase_sample(tmp: str, card: str) -> None:
         out = os.path.join(tmp, f"sample_{run}")
         cc0 = compile_counter().snapshot()
         t0 = time.perf_counter()
-        log = run_cli(
-            ["--input-files", fq, "--output-folder", out],
-            os.path.join(tmp, f"sample_{run}.log"),
-        )
+        log = run_cli(["--input-files", fq, "--output-folder", out])
         walls[run] = time.perf_counter() - t0
         n_prog, s_prog = compile_counter().delta(cc0)
         with open(os.path.join(out, "CRISPR_Arrays.txt")) as fh:
@@ -438,8 +438,7 @@ def phase_four_cards(tmp: str, card: str) -> None:
 
     t0 = time.perf_counter()
     log = run_cli(
-        ["--input-files", fq, "--output-folder", os.path.join(tmp, "sharded")],
-        os.path.join(tmp, "sharded.log"),
+        ["--input-files", fq, "--output-folder", os.path.join(tmp, "sharded")]
     )
     check("Graph built (sharded over {'dp': 1, 'kp': 4})" in log,
           "the CLI run did not take the sharded path")
@@ -455,8 +454,7 @@ def phase_four_cards(tmp: str, card: str) -> None:
     t0 = time.perf_counter()
     run_cli(
         ["--input-files", fq, "--output-folder", os.path.join(tmp, "single"),
-         "--mesh", "off"],
-        os.path.join(tmp, "single.log"),
+         "--mesh", "off"]
     )
     say("cards", f"CLI on card 0 (--mesh off): {time.perf_counter() - t0:.1f}s "
         f"({label})")
@@ -480,11 +478,6 @@ def main(argv: list[str] | None = None) -> int:
         action="store_true",
         help="run only the sharded-vs-one-card check on a four-GPU host",
     )
-    ap.add_argument(
-        "--keep-logs",
-        metavar="DIR",
-        help="copy the CLI console logs of every run into DIR",
-    )
     opts = ap.parse_args(argv)
     if not opts.four_cards:
         # keep to one card before JAX starts
@@ -505,15 +498,16 @@ def main(argv: list[str] | None = None) -> int:
             phase_goldens(tmp)
             phase_sample(tmp, card)
             phase_fuzz()
-    except SmokeFailure as e:
+    except Exception as e:
+        tail = _cli_log.getvalue().splitlines()[-40:]
+        if tail:
+            print("chip_smoke: last CLI output:", *tail, sep="\n  ",
+                  file=sys.stderr, flush=True)
+        if not isinstance(e, SmokeFailure):
+            raise
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     finally:
-        if opts.keep_logs:
-            os.makedirs(opts.keep_logs, exist_ok=True)
-            for f in os.listdir(tmp):
-                if f.endswith(".log"):
-                    shutil.copy(os.path.join(tmp, f), opts.keep_logs)
         shutil.rmtree(tmp, ignore_errors=True)
     import jax
 

@@ -33,6 +33,7 @@ _LDFLAGS = ["-shared", "-lz"]
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+last_build_command: Optional[str] = None
 
 
 def _up_to_date(src: str, lib: str) -> bool:
@@ -56,9 +57,11 @@ def build_library(src: str = _SRC_PATH, lib: str = _LIB_PATH) -> bool:
 
     Every compiler is tried with OpenMP before any is tried without it
     (the source guards its OpenMP use, so a compiler that lacks it still
-    gives a working, single-threaded library)."""
+    gives a working, single-threaded library, and says so on stderr).
+    The command that compiled it is kept in ``last_build_command``."""
     import fcntl
 
+    global last_build_command
     if _up_to_date(src, lib):
         return False
     compilers = _compilers()
@@ -77,13 +80,17 @@ def build_library(src: str = _SRC_PATH, lib: str = _LIB_PATH) -> bool:
         try:
             for omp in (["-fopenmp"], []):
                 for cxx in compilers:
-                    res = subprocess.run(
-                        [cxx, *_CXXFLAGS, *omp, src, "-o", tmp, *_LDFLAGS, *omp],
-                        capture_output=True,
-                        text=True,
-                    )
+                    cmd = [cxx, *_CXXFLAGS, *omp, src, "-o", tmp, *_LDFLAGS, *omp]
+                    res = subprocess.run(cmd, capture_output=True, text=True)
                     if res.returncode == 0:
                         os.replace(tmp, lib)
+                        last_build_command = " ".join(cmd).replace(tmp, lib)
+                        if not omp:
+                            print(
+                                f"mcaat_tpu: no compiler accepted -fopenmp; "
+                                f"{lib} is single-threaded",
+                                file=sys.stderr,
+                            )
                         return True
                     errors.append(f"{cxx} {' '.join(omp)}: {res.stderr[-1000:]}")
             raise RuntimeError(f"compiling {src} failed:\n" + "\n".join(errors))
@@ -177,6 +184,20 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.mcaat_set_threads.argtypes = [c.c_int]
     _lib = lib
     return _lib
+
+
+def build_info(lib: Optional[ctypes.CDLL] = None) -> "str | None":
+    """What the loaded library (or ``lib``) says it was built with: the
+    compiler version and its OpenMP version, or None when unavailable."""
+    lib = lib or _load()
+    if lib is None:
+        return None
+    lib.mcaat_compiler_version.restype = ctypes.c_char_p
+    omp = lib.mcaat_openmp_version()
+    return (
+        f"compiler {lib.mcaat_compiler_version().decode()}, "
+        + (f"OpenMP {omp}" if omp else "no OpenMP")
+    )
 
 
 def pack_codes(codes) -> "np.ndarray | None":

@@ -660,6 +660,18 @@ int mcaat_poa_consensus(const char* buf, const int64_t* offsets,
 // operator[] hits never move a node, so the multiset collapses to this);
 // output: order_out[i] = input index of the i-th key in map iteration
 // order. Returns the key count.
+int64_t mcaat_umap_order(const char* buf, const int64_t* offsets,
+                         int64_t n_keys, int64_t* order_out) {
+  std::unordered_map<std::string, int64_t> m;
+  for (int64_t i = 0; i < n_keys; ++i) {
+    std::string k(buf + offsets[i], (size_t)(offsets[i + 1] - offsets[i]));
+    m.emplace(std::move(k), i);  // same insertion schedule as count[kmer]++
+  }
+  int64_t j = 0;
+  for (const auto& p : m) order_out[j++] = p.second;
+  return j;
+}
+
 // Bound the library's OpenMP parallelism (the packer's parallel-for) to
 // the CLI's --threads, like the reference's omp_set_num_threads in
 // src/main.cpp:292-294. No-op for n <= 0 or non-OpenMP builds.
@@ -671,16 +683,16 @@ void mcaat_set_threads(int n) {
 #endif
 }
 
-int64_t mcaat_umap_order(const char* buf, const int64_t* offsets,
-                         int64_t n_keys, int64_t* order_out) {
-  std::unordered_map<std::string, int64_t> m;
-  for (int64_t i = 0; i < n_keys; ++i) {
-    std::string k(buf + offsets[i], (size_t)(offsets[i + 1] - offsets[i]));
-    m.emplace(std::move(k), i);  // same insertion schedule as count[kmer]++
-  }
-  int64_t j = 0;
-  for (const auto& p : m) order_out[j++] = p.second;
-  return j;
+// The compiler version this library was built with, and its OpenMP
+// version (_OPENMP, a yyyymm date) or 0 for a single-threaded build.
+const char* mcaat_compiler_version() { return __VERSION__; }
+
+int mcaat_openmp_version() {
+#ifdef _OPENMP
+  return _OPENMP;
+#else
+  return 0;
+#endif
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 
 from mcaat_tpu.cycles.finder import CycleFinder, find_cycles
 from mcaat_tpu.cycles.start_nodes import select_start_nodes, self_reachable_batch
-from tests.test_prune import make_graph
+from test_prune import make_graph
 
 
 def naive_bounded_cycles_through(out, valid, start, min_len, max_len):
@@ -211,7 +211,7 @@ def test_extraction_parity_on_synthetic_metagenome():
     from mcaat_tpu.graph.dbg import build_dbg_from_reads
     from mcaat_tpu.io.fastq import encode_sequences
     from mcaat_tpu.prune.prune import prune_graph
-    from tests.synthetic import make_metagenome
+    from synthetic import make_metagenome
 
     meta = make_metagenome(seed=7, n_arrays=1, n_spacers=5)
     batch = encode_sequences(meta["reads"])
@@ -298,7 +298,7 @@ def test_find_cycles_compact_path_parity():
     from mcaat_tpu.cycles.finder import find_cycles
     from mcaat_tpu.graph.dbg import build_dbg_from_reads
     from mcaat_tpu.io.fastq import encode_sequences
-    from tests.synthetic import make_metagenome
+    from synthetic import make_metagenome
 
     meta = make_metagenome(seed=19, n_arrays=2, n_spacers=5)
     batch = encode_sequences(meta["reads"])
@@ -322,7 +322,7 @@ def test_find_cycles_lazy_clip_parity():
     from mcaat_tpu.cycles.finder import find_cycles
     from mcaat_tpu.graph.dbg import build_dbg_from_reads
     from mcaat_tpu.io.fastq import encode_sequences
-    from tests.synthetic import make_metagenome
+    from synthetic import make_metagenome
 
     # background_len adds linear chains that only the tip clip removes
     meta = make_metagenome(

@@ -6,7 +6,7 @@ import pytest
 
 from mcaat_tpu.pipeline import run_pipeline
 from mcaat_tpu.settings import Settings
-from tests.synthetic import make_metagenome, write_fasta, write_fastq
+from synthetic import make_metagenome, write_fasta, write_fastq
 
 
 def run_on(tmp_path, meta, paired=False, **settings_kw):
@@ -72,7 +72,7 @@ def test_paired_end_detected(tmp_path):
 @pytest.mark.slow
 def test_no_array_in_pure_background(tmp_path):
     rng = np.random.default_rng(5)
-    from tests.synthetic import random_seq, sample_reads
+    from synthetic import random_seq, sample_reads
 
     bg = random_seq(rng, 3000)
     reads = sample_reads(rng, bg, read_len=100, coverage=10.0)
@@ -245,7 +245,7 @@ def test_condensed_region_clip_parity(tmp_path):
     from mcaat_tpu.pipeline import spacer_ordering_step
     from mcaat_tpu.prune.prune import clip_tips
     from mcaat_tpu.reads.mapper import get_reads
-    from tests.synthetic import make_crispr_array, random_seq, sample_reads
+    from synthetic import make_crispr_array, random_seq, sample_reads
 
     rng = np.random.default_rng(47)
     arr_seq, _repeat, _spacers = make_crispr_array(rng, n_spacers=5)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from mcaat_tpu.parallel.multihost import host_byte_range, read_host_shard
-from tests.synthetic import make_metagenome, write_fastq
+from synthetic import make_metagenome, write_fastq
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -50,7 +50,7 @@ def test_parse_non_acgt_becomes_t(tmp_path):
 
 def test_enumerate_matches_python():
     from mcaat_tpu.cycles.finder import CycleFinder
-    from tests.test_cycles import two_loop_graph
+    from test_cycles import two_loop_graph
 
     g = two_loop_graph()
     out = np.asarray(g.out).reshape(-1, 4)
@@ -70,7 +70,7 @@ def test_enumerate_matches_python():
 
 
 def test_enumerate_visited_suppression():
-    from tests.test_cycles import two_loop_graph
+    from test_cycles import two_loop_graph
 
     g = two_loop_graph()
     native = enumerate_cycles(
@@ -82,7 +82,7 @@ def test_enumerate_visited_suppression():
 
 
 def test_enumerate_mult_ratio():
-    from tests.test_prune import make_graph
+    from test_prune import make_graph
 
     edges = {0: [1], 1: [2], 2: [0]}
     g = make_graph(edges, 3, mult=[100000, 100, 100])

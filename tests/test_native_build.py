@@ -61,8 +61,21 @@ def test_build_failure_raises(tmp_path, compiler):
     assert [f for f in os.listdir(tmp_path) if f.startswith(".libbroken")] == []
 
 
-def test_build_without_openmp_support(tmp_path, compiler, monkeypatch):
-    """A compiler that refuses -fopenmp still yields a working library."""
+def test_build_reports_compiler_and_openmp(tmp_path, compiler):
+    """A build records its command, and the library reports the compiler
+    and OpenMP version it was built with."""
+    src = tmp_path / "mcaat_host.cpp"
+    shutil.copy(os.path.join(REPO, "native", "mcaat_host.cpp"), src)
+    lib = tmp_path / "libmcaat_host.so"
+    assert native.build_library(str(src), str(lib)) is True
+    assert native.last_build_command.endswith(f"-o {lib} -shared -lz -fopenmp")
+    info = native.build_info(ctypes.CDLL(str(lib)))
+    assert info.startswith("compiler ") and "OpenMP 20" in info
+
+
+def test_build_without_openmp_support(tmp_path, compiler, monkeypatch, capsys):
+    """A compiler that refuses -fopenmp still yields a working library,
+    which says it has no OpenMP, and the build says so on stderr."""
     real = native._compilers()[0]
     fake = tmp_path / "g++"
     fake.write_text(
@@ -76,4 +89,8 @@ def test_build_without_openmp_support(tmp_path, compiler, monkeypatch):
     shutil.copy(os.path.join(REPO, "native", "mcaat_host.cpp"), src)
     lib = tmp_path / "libmcaat_host.so"
     assert native.build_library(str(src), str(lib)) is True
-    assert hasattr(ctypes.CDLL(str(lib)), "mcaat_set_threads")
+    assert "single-threaded" in capsys.readouterr().err
+    assert "-fopenmp" not in native.last_build_command
+    built = ctypes.CDLL(str(lib))
+    assert hasattr(built, "mcaat_set_threads")
+    assert native.build_info(built).endswith(", no OpenMP")

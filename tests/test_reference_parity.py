@@ -38,7 +38,7 @@ import pytest
 
 from mcaat_tpu.pipeline import build_graph_from_settings, run_pipeline
 from mcaat_tpu.settings import Settings
-from tests.synthetic import make_metagenome, write_fastq
+from synthetic import make_metagenome, write_fastq
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HARNESS = os.path.join(REPO, "tests", "reference_parity")
@@ -247,7 +247,7 @@ def test_report_parity_mutated_repeats(tmp_path, ref_driver):
     the analyzer's prefix/suffix reassignment on both sides."""
     import numpy as np
 
-    from tests.synthetic import make_mutated_repeat_array, random_seq, sample_reads
+    from synthetic import make_mutated_repeat_array, random_seq, sample_reads
 
     rng = np.random.default_rng(53)
     reads = []
@@ -348,7 +348,7 @@ def test_tangle_abort_divergence(tmp_path, ref_driver):
     """
     import numpy as np
 
-    from tests.synthetic import make_bubble_tandem, random_seq, sample_reads
+    from synthetic import make_bubble_tandem, random_seq, sample_reads
 
     rng = np.random.default_rng(61)
     meta = make_metagenome(seed=67, n_arrays=1, n_spacers=6, coverage=40.0)

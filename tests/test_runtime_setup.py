@@ -51,12 +51,17 @@ def test_chip_smoke_refuses_the_cpu():
 
 
 def test_chip_smoke_alone_fails(tmp_path):
-    """Without the rest of the repository the smoke cannot pass."""
+    """Without the rest of the repository the smoke cannot import the
+    package, and fails before it reaches the device gate."""
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = _env()
+    env.pop("PYTHONPATH")
     res = subprocess.run(
         [sys.executable, str(tmp_path / "chip_smoke.py")],
-        env=_env(), cwd=str(tmp_path), capture_output=True, text=True,
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
         timeout=300,
     )
     assert res.returncode != 0
+    assert "No module named 'mcaat_tpu'" in res.stderr
+    assert "[gate]" not in res.stdout
     assert '"ok"' not in res.stdout

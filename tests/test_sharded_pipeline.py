@@ -12,7 +12,7 @@ import pytest
 
 from mcaat_tpu.pipeline import run_pipeline
 from mcaat_tpu.settings import Settings
-from tests.synthetic import make_metagenome, write_fastq
+from synthetic import make_metagenome, write_fastq
 
 
 def _run(tmp_path, meta, mesh, name):
@@ -102,7 +102,7 @@ def test_sharded_read_mapping_skewed_input(tmp_path):
     from mcaat_tpu.graph.dbg import build_dbg_from_reads
     from mcaat_tpu.io.fastq import encode_sequences
     from mcaat_tpu.reads.mapper import get_reads
-    from tests.synthetic import write_fastq
+    from synthetic import write_fastq
 
     # all-A reads: every 23-mer is AAAA... -> one owner shard
     reads = ["A" * 60] * 64 + ["ACGT" * 15] * 64
