@@ -17,7 +17,9 @@ would fail for want of memory) and goes through the user's entry point,
    walls, the number of compiled programs and the peak device bytes;
 5. fuzz scorer: ``ratio_batch`` on 262,144 random pairs and
    ``partial_ratio_pairs`` on a 40-spacer all-pairs set must equal
-   ``report/fuzz.py`` exactly.
+   ``report/fuzz.py`` exactly;
+6. processes: the ordering pool's fork server and resource tracker are
+   stopped and waited for, and no process this run started may be left.
 
 The last line is ``{"ok": true, "device": {...}}``; a failed phase exits
 non-zero before it.
@@ -30,7 +32,7 @@ one-card run there.
 ``--four-cards`` runs only the multi-card check on a four-GPU host: the
 phase-4 sample built and run sharded over the four cards, then on card 0
 alone with ``--mesh off``; the reports must be byte-identical and the
-node tables must hash the same.
+node tables must hash the same, and the process phase follows.
 
 When a phase fails, the tail of the last CLI run's console output goes
 to stderr.
@@ -397,6 +399,48 @@ def phase_fuzz() -> None:
         f"({len(shorts)} pairs): equal to report/fuzz.py")
 
 
+def _descendants(pid: int) -> list[int]:
+    """Live (not zombie) descendants of ``pid``, from ``/proc``."""
+    children: dict[int, list[int]] = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                state, ppid = fh.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(name))
+    found, stack = [], [pid]
+    while stack:
+        kids = children.get(stack.pop(), [])
+        found += kids
+        stack += kids
+    return found
+
+
+def _running(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def phase_processes() -> None:
+    """Phase 6: stop the ordering pool's fork server and resource tracker
+    (``stop_ordering_server`` waits for both); nothing this run started
+    may outlive it."""
+    from mcaat_tpu.pipeline import stop_ordering_server
+
+    started = _descendants(os.getpid())
+    stop_ordering_server()
+    left = sorted({p for p in started + _descendants(os.getpid()) if _running(p)})
+    check(not left, f"processes still running after the run: {left}")
+    say("procs", f"{len(started)} child processes stopped; none left")
+
+
 def phase_four_cards(tmp: str, card: str) -> None:
     """The sharded path over four cards against card 0 alone."""
     import jax
@@ -498,6 +542,7 @@ def main(argv: list[str] | None = None) -> int:
             phase_goldens(tmp)
             phase_sample(tmp, card)
             phase_fuzz()
+        phase_processes()
     except Exception as e:
         tail = _cli_log.getvalue().splitlines()[-40:]
         if tail:

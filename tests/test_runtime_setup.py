@@ -39,6 +39,58 @@ def test_compile_cache_dir(tmp_path, env_dir):
     assert out.strip() == want
 
 
+_POOL_RUN = """
+from concurrent.futures import ProcessPoolExecutor
+from mcaat_tpu import pipeline
+pipeline.start_ordering_server()
+with ProcessPoolExecutor(2, mp_context=pipeline._ordering_context()) as ex:
+    assert list(ex.map(abs, [-1, -2])) == [1, 2]
+"""
+
+
+def _running_in_session(sid):
+    """Pids of the live (not zombie) processes of session ``sid``."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                state, _ppid, _pgrp, session = fh.read().rsplit(")", 1)[1].split()[:4]
+        except (OSError, ValueError):
+            continue
+        if int(session) == sid and state != "Z":
+            pids.append(int(name))
+    return pids
+
+
+@pytest.mark.parametrize(
+    "end",
+    ["", "import chip_smoke\nchip_smoke.phase_processes()\n"],
+    ids=["at_exit", "smoke_phase"],
+)
+def test_ordering_pool_leaves_no_process(tmp_path, end):
+    """The ordering pool's fork server and resource tracker are stopped
+    and waited for before the interpreter exits, at exit or by the
+    smoke's process phase, so nothing the run started outlives it."""
+    # output to a file, not a pipe: reading a pipe to its end would also
+    # wait for every process that inherited it
+    with open(tmp_path / "log", "w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _POOL_RUN + end],
+            env=_env(MCAAT_ORDERING_PROCS="2"), start_new_session=True,
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+        rc = proc.wait(timeout=300)
+        left = _running_in_session(proc.pid)
+        log.seek(0)
+        text = log.read()
+    assert rc == 0, text
+    assert left == []
+    if end:
+        assert "[procs]" in text and "none left" in text
+
+
 def test_chip_smoke_refuses_the_cpu():
     res = subprocess.run(
         [sys.executable, os.path.join(REPO, "chip_smoke.py")],
